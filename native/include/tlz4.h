@@ -9,7 +9,7 @@
  *   1. streaming contexts (tlz4_enc / tlz4_dec) — used by the CLIs;
  *   2. one-shot frame helpers;
  *   3. block-level entry points (match/parse/emit/sequence-split) — the
- *      host side of the hybrid TPU pipeline.
+ *      host side of the hybrid device pipeline.
  *
  * All functions return >= 0 on success or a negative TLZ4_E_* code.
  */
@@ -116,7 +116,7 @@ int64_t tlz4_decompress(const uint8_t *src, int64_t n,
                         uint8_t *dst, int64_t cap,
                         const uint8_t *dict, int64_t dict_n);
 
-/* ---------------- block-level entry points (TPU hybrid path) ---------- */
+/* ---------------- block-level entry points (device hybrid path) ---------- */
 
 /* Match finder over one block with left context.
  * buf       : context bytes; the block starts at buf[base] and ends at
@@ -155,14 +155,14 @@ int64_t tlz4_match_block_ex2(const uint8_t *buf, int64_t buf_n, int64_t base,
 
 /* Selective re-search (level-9 semantics): runs the match search only at
  * positions with mask[i] != 0; others keep their incoming (len, dist).
- * Host side of the TPU parity fallback for unconverged lanes. */
+ * Host side of the device parity fallback for unconverged lanes. */
 int64_t tlz4_match_refine(const uint8_t *buf, int64_t buf_n, int64_t base,
                           int64_t bs, int64_t lookback, int64_t cut_pos,
                           const uint8_t *mask, int32_t *out_len,
                           int32_t *out_dist);
 
 /* Distance-only refine: like tlz4_match_refine, but targets[i] carries the
- * certified exact max length at each masked position (the TPU length-known
+ * certified exact max length at each masked position (the device length-known
  * certificate), letting the walk stop at its FIRST achiever — which is the
  * reference's nearest-of-max (smallz4.h:173-255 walks nearest-first and
  * only accepts strict improvements).  Bit-exact and far cheaper than a

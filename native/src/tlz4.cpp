@@ -53,7 +53,7 @@ inline uint32_t hash_gram(uint32_t g) {
  * and false bucket-mates are filtered by the walk's cheap reject, so any
  * mixer is correct. */
 constexpr int kNumAux = 3;
-constexpr int64_t kAuxLen[kNumAux] = {5, 9, 32}; /* tuned; see docs/PERF.md */
+constexpr int64_t kAuxLen[kNumAux] = {5, 9, 32}; /* tuned; see PERF.md */
 constexpr int kAuxBits = 22;
 inline uint32_t mix64(uint64_t g) {
   return uint32_t((g * 0x9E3779B97F4A7C15ull) >> (64 - kAuxBits));
@@ -306,7 +306,7 @@ void match_block(MatchTables &t, const uint8_t *buf, int64_t buf_zero,
                  const int32_t *targets = nullptr) {
   /* refine_mask: when set (level-9 only, no skip interdependence), run the
    * search only at flagged positions; unflagged keep their incoming
-   * (len, dist) — the host side of the TPU parity fallback.
+   * (len, dist) — the host side of the device parity fallback.
    * block_end: absolute end of the enclosing LZ4 block.  Defaults to
    * base+bs (the classic whole-block call).  When base+bs < block_end this
    * is a *chunk* call: positions [base, base+bs) of a larger block are
@@ -1544,7 +1544,7 @@ int64_t tlz4_decompress(const uint8_t *src, int64_t n, uint8_t *dst,
 }
 
 /* ================================================================== */
-/* block-level entry points (TPU hybrid path)                          */
+/* block-level entry points (device hybrid path)                        */
 /* ================================================================== */
 
 int64_t tlz4_match_block(const uint8_t *buf, int64_t buf_n, int64_t base,
@@ -1627,7 +1627,7 @@ int64_t tlz4_match_refine2(const uint8_t *buf, int64_t buf_n, int64_t base,
                            const uint8_t *mask, const int32_t *targets,
                            int32_t *out_len, int32_t *out_dist) {
   /* Distance-only refine: targets[i] is the certified exact max length at
-   * masked position i (the TPU length-known certificate), so the walk
+   * masked position i (the device length-known certificate), so the walk
    * early-stops at its first achiever — the reference's nearest-of-max
    * (smallz4.h:173-255 walks nearest-first and keeps the first max). */
   if (!buf || !mask || !targets || base < 0 || bs < 0 || base + bs > buf_n ||

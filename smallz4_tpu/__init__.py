@@ -1,9 +1,10 @@
-"""smallz4_tpu — a TPU-native LZ4 codec framework.
+"""smallz4_tpu — a device-accelerated LZ4 codec framework.
 
 A from-scratch re-design of the capabilities of gbonneau-hardent/smallz4
-(optimal-parse LZ4 encoder + streaming decoder) for TPU hardware:
-JAX/XLA/Pallas kernels for the block codec, a native C++ host runtime for
-the serial byte-stream glue, and jax.sharding for multi-chip scale-out.
+(optimal-parse LZ4 encoder + streaming decoder) for an accelerator (an
+NVIDIA GPU): JAX/XLA code for the block codec, a native C++ host runtime
+for the serial byte-stream glue, and jax.sharding for multi-device
+scale-out.
 
 Public API (mirrors the reference's two capabilities — smallz4.h:31-37,
 smallz4cat.c:363-366 — in idiomatic Python, plus in-memory variants):

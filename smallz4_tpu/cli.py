@@ -17,7 +17,7 @@ PROGRAM = "smallz4-tpu"
 
 def show_help(out=sys.stdout) -> None:
     print(
-        f"""smalLZ4-tpu {fmt.VERSION}: TPU-native compressor with optimal parsing, fully compatible with LZ4 by Yann Collet (see https://lz4.org)
+        f"""smalLZ4-tpu {fmt.VERSION}: device-accelerated compressor with optimal parsing, fully compatible with LZ4 by Yann Collet (see https://lz4.org)
 
 Basic usage:
   {PROGRAM} [flags] [input] [output]
@@ -49,8 +49,9 @@ Compression levels:
  -9               Optimal parsing, check all possible matches (default)
 
 Framework extensions (beyond the reference CLI):
-  --engine=E      auto | native | tpu | host | oracle
-  --kernel=K      tpu device search kernel: chunk | sort | walk
+  --engine=E      auto | native | tpu | host | oracle (tpu = the device
+                  engine, on the GPU)
+  --kernel=K      device search kernel: chunk | walk
   --unsafe-raw    tpu engine DIAGNOSTIC: keep raw device claims (skip
                   the exact host refine; output stays a valid stream but
                   the size may exceed -9 — not a product mode)
@@ -88,7 +89,7 @@ def main(argv: list[str] | None = None) -> int:
     block_size: int | None = None  # --block-size=N
     content_checksum = False    # --checksum (spec content checksum)
     max_candidates = 16     # tpu engine search cap (profiles override)
-    kernel = None           # --kernel=chunk|sort|walk (tpu device kernel)
+    kernel = None           # --kernel=chunk|walk (device search kernel)
     parity = True           # tpu engine exact -9 streams (default)
     want_report = False     # --report: RunReport JSON on stderr
 
@@ -114,7 +115,7 @@ def main(argv: list[str] | None = None) -> int:
             key, _, val = arg[2:].partition("=")
             if key == "engine" and val in ("auto", "native", "tpu", "host", "oracle"):
                 engine = val
-            elif key == "kernel" and val in ("chunk", "sort", "walk"):
+            elif key == "kernel" and val in ("chunk", "walk"):
                 kernel = val
             elif key == "threads" and val.isdigit():
                 threads = int(val)
@@ -228,26 +229,6 @@ def main(argv: list[str] | None = None) -> int:
             report.bytes_in = progress.bytes_in
             report.bytes_out = progress.bytes_out
         print(report.to_json(), file=sys.stderr)
-        if engine == "tpu" and report.counters:
-            # speed-of-light accounting (BASELINE.md reporting row):
-            # per-stage achieved vs hardware ceiling + PCIe projection.
-            # Reporting must never fail a completed compression.
-            try:
-                import json as _json
-
-                from .utils import sol
-
-                print(_json.dumps({"speed_of_light": sol.report(
-                    bytes_in=report.bytes_in, stages=report.stages,
-                    counters=report.counters,
-                    unconv_pct=(
-                        100.0 * report.counters.get("n_refine_positions", 0)
-                        / report.counters["n_positions"]
-                        if report.counters.get("n_positions") else None),
-                )}), file=sys.stderr)
-            except Exception as e:  # pragma: no cover
-                print(f"(speed-of-light report unavailable: {e!r})",
-                      file=sys.stderr)
     return 0
 
 

@@ -4,7 +4,8 @@ Engines:
   'oracle' — NumPy reference-exact scalar codec (smallz4_tpu.oracle); slow,
              used as the differential anchor.
   'native' — C++ host runtime (smallz4_tpu.native); fast single-stream path.
-  'tpu'    — JAX/Pallas block-parallel path (smallz4_tpu.ops / .parallel).
+  'tpu'    — the device engine: JAX block-parallel path on the GPU
+             (smallz4_tpu.ops / .parallel).
   'auto'   — native if built, else oracle.
 """
 from __future__ import annotations
@@ -52,8 +53,8 @@ def decompress(data, dictionary=None, engine="auto") -> bytes:
 
 def decompress_batch(frames, dictionary=None, engine="auto") -> list:
     """Decode many independent frames.  'tpu' batches block expansions
-    across frames in one vmapped device dispatch (the TPU-shaped decode
-    parallelism — ops.decoder.decompress_batch); 'auto'/'native' loop
+    across frames in one vmapped device dispatch (decode parallelism
+    across frames — ops.decoder.decompress_batch); 'auto'/'native' loop
     the fast host decoder."""
     if engine == "tpu":
         from .ops import decoder

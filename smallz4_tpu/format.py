@@ -17,7 +17,7 @@ Behavioral parity notes (reference: gbonneau-hardent/smallz4):
   token codec       smallz4.h:259-371 (encode) / smallz4cat.c:207-343 (decode)
 
 Everything here is pure Python/NumPy — serialization stays on the host side of
-the host/TPU boundary by design (byte-order fidelity; see SURVEY.md §7).
+the host/device boundary by design (byte-order fidelity; see SURVEY.md §7).
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 The native library is the production single-stream path: the streaming
 frame encoder/decoder used by the CLIs, and the block-level entry points
 (match/parse/emit/sequence-split) that form the host side of the hybrid
-TPU pipeline.  Built on demand with `make -C native` (g++ only, no deps).
+device pipeline.  Built on demand with `make -C native` (g++ only, no deps).
 """
 from __future__ import annotations
 
@@ -351,7 +351,7 @@ class RingDecoder:
 
 
 # ---------------------------------------------------------------------------
-# block-level entry points (TPU hybrid path)
+# block-level entry points (device hybrid path)
 # ---------------------------------------------------------------------------
 
 def match_block(buf, base: int, bs: int, level: int, lookback: int = 0):

@@ -1,4 +1,4 @@
-"""TPU decoder: the reference's branchy copy loop (smallz4cat.c:207-343)
+"""Device decoder: the reference's branchy copy loop (smallz4cat.c:207-343)
 re-designed as a gather-based expansion kernel.
 
 Stage split (SURVEY.md §7 step 3):
@@ -94,7 +94,7 @@ def _update_hist(hist: jnp.ndarray, out: jnp.ndarray, out_len) -> jnp.ndarray:
     return jax.lax.dynamic_slice(cat, (out_len,), (HIST_CAP,))
 
 
-class TpuBlockDecoder:
+class DeviceBlockDecoder:
     """Pads host sequence tables to static shapes and drives expand_block.
 
     Shapes are bucketed so repeated calls hit the jit cache: payload,
@@ -153,7 +153,7 @@ class TpuBlockDecoder:
 
 
 # ---------------------------------------------------------------------------
-# batched multi-frame decode — the TPU-shaped decode parallelism
+# batched multi-frame decode — parallelism across frames
 # ---------------------------------------------------------------------------
 
 def _bucket(n: int, lo: int) -> int:
@@ -179,9 +179,9 @@ def _update_hist_batch(hist, out, out_len):
 def decompress_batch(frames, dictionary: bytes | None = None) -> list:
     """Decode MANY independent LZ4 frames with batched device expansion.
 
-    Single-stream device decode is architecturally gather-bound
-    (docs/PARITY.md "Decode path decision"); the TPU-shaped decode
-    parallelism is across frames: round r expands block r of EVERY
+    Single-stream device decode is a chain of dependent gathers
+    (docs/PARITY.md "Decode path decision"); this decode parallelism is
+    across frames: round r expands block r of EVERY
     frame in one vmapped dispatch, with each frame's 64 KB history
     chained device-resident between rounds.  Host work per block is the
     serial sequence parse (native runtime, ~1 GB/s).
@@ -234,7 +234,7 @@ def decompress_batch(frames, dictionary: bytes | None = None) -> list:
                 ll, ml, mo, ls = native.parse_sequences(payload)
                 out_len = int(ll.sum() + ml.sum())
                 if out_len > block_cap:
-                    # same guard as TpuBlockDecoder.decode_dev: a corrupt
+                    # same guard as DeviceBlockDecoder.decode_dev: a corrupt
                     # frame must not size the batch buffers
                     raise fmt.FormatError(
                         "block exceeds declared maximum size")
@@ -252,7 +252,7 @@ def decompress_batch(frames, dictionary: bytes | None = None) -> list:
                 break
         per_frame.append(blocks)
 
-    hist = jnp.stack([TpuBlockDecoder.hist_device(
+    hist = jnp.stack([DeviceBlockDecoder.hist_device(
         bytes(dictionary)[-HIST_CAP:] if dictionary else b"")] * B)
     rounds = max((len(b) for b in per_frame), default=0)
     outs: list[list[bytes]] = [[] for _ in range(B)]

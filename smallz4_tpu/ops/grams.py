@@ -1,8 +1,8 @@
-"""Device-side gram/byte-view primitives shared by the TPU kernels.
+"""Device-side gram/byte-view primitives shared by the device kernels.
 
 All serialization stays on the host (SURVEY.md §7 byte-order rule); these
 ops only build integer *views* of the byte stream for vectorized compare/
-hash work on the VPU.
+hash work on the device.
 """
 from __future__ import annotations
 

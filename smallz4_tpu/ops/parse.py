@@ -1,4 +1,4 @@
-"""Device optimal parser: the backward cost DP as TPU policy iteration.
+"""Device optimal parser: the backward cost DP as policy iteration.
 
 The reference's `estimateCosts` (smallz4.h:376-472) is a backward scan:
 cost[i] = min(literal via cost[i+1] + extra-byte accounting, match via
@@ -33,11 +33,11 @@ converged decisions equal `estimateCosts`' element-wise.  Bit-parity is
 asserted by differential tests against the native DP
 (tests/test_parse.py).
 
-Economics (documented honestly — see docs/PARITY.md): each round costs
-~36 gathers/position and the chip gathers at ~0.1 G/s, so this runs at
-single-digit MB/s — the hybrid host-DP default remains the throughput
-path; this kernel exists for device-resident completeness (SURVEY.md §7
-step 5) and as the base of the device emitter.
+Economics: each round costs ~36 gathers/position, so the rate follows
+the device's gather rate (not measured on the card yet); the hybrid
+host-DP default remains the throughput path; this kernel exists for
+device-resident completeness (SURVEY.md §7 step 5) and as the base of
+the device emitter.
 """
 from __future__ import annotations
 

@@ -42,7 +42,7 @@ instead: the dictionary's last <= 65535 bytes act as a virtual prefix of the
 first block, with no zero-padding.
 
 This code is deliberately simple and scalar; it exists to be *obviously
-correct* and to cross-check the native C++ runtime and the TPU kernels.
+correct* and to cross-check the native C++ runtime and the device kernels.
 Use it on small inputs only.
 """
 from __future__ import annotations
@@ -52,7 +52,7 @@ import numpy as np
 from . import format as fmt
 
 # ---------------------------------------------------------------------------
-# gram extraction (shared with the TPU ops)
+# gram extraction (shared with the device ops)
 # ---------------------------------------------------------------------------
 
 def grams4(data: np.ndarray) -> np.ndarray:
@@ -68,7 +68,7 @@ def grams4(data: np.ndarray) -> np.ndarray:
 def hash32(grams: np.ndarray) -> np.ndarray:
     """The reference's LCG hash: (x * 48271) >> 12, 20 bits
     (parity: smallz4.h:163-169).  The oracle needs no hashing (exact gram
-    grouping); the TPU bucketed matcher uses this."""
+    grouping); the device bucketed matcher uses this."""
     prod = (grams.astype(np.uint64) * np.uint64(fmt.HASH_MULTIPLIER)) & np.uint64(0xFFFFFFFF)
     return ((prod >> np.uint64(32 - fmt.HASH_BITS)) & np.uint64(fmt.HASH_SIZE - 1)).astype(np.uint32)
 
@@ -373,7 +373,7 @@ def compress(
     Bit-identical to the reference CLI for all levels 0-9, modern and legacy
     formats (golden tests); dictionary mode is spec-correct (see module doc).
     ``block_size`` overrides the 4 MB (modern) / 8 MB (legacy) default —
-    emitting smaller blocks is spec-legal and is how the sharded TPU path
+    emitting smaller blocks is spec-legal and is how the sharded device path
     tunes its per-device granularity.
     """
     if isinstance(data, np.ndarray):

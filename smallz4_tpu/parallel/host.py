@@ -24,7 +24,7 @@ sequential encoder at ANY thread/chunk granularity.
 The native matcher releases the GIL, so a thread pool scales the *exact*
 -9 search across cores.  This is the framework's fast path when no (or
 one slow) accelerator is available, and the post-processing stage
-(DP + emit) of the hybrid TPU pipeline.
+(DP + emit) of the hybrid device pipeline.
 
 Bit-parity domain (same as the sharded path): block_size >= 65548 so the
 sequential encoder's lookback at each boundary is the full 12 bytes, and

@@ -7,8 +7,8 @@ module is the framework's from-scratch distribution layer:
   halo (the dependent-block history carry, smallz4.h:798-805).  A batch of
   fixed-size blocks is sharded across the mesh's ``blocks`` axis.
 * **Halo exchange** — each device receives its left neighbor's trailing
-  64 KB via ``jax.lax.ppermute`` over ICI (the "context parallelism"
-  analog), so the sharded output is bit-identical to the sequential
+  64 KB via ``jax.lax.ppermute`` (the "context parallelism" analog), so
+  the sharded output is bit-identical to the sequential
   stream (chain-cut semantics included, ops.match_finder).
 * **Ragged outputs** — per-block compressed sizes are data-dependent; the
   device path returns fixed-shape match arrays, and the host packs the
@@ -67,8 +67,8 @@ def _match_batch(ctx, start_valid, end_valid, cut, max_candidates):
 
 
 def sharded_match_step(mesh: Mesh, block_size: int, max_candidates: int = 64):
-    """Build the jitted multi-chip step: blocks sharded over the mesh, halo
-    exchanged over ICI with ppermute.
+    """Build the jitted multi-device step: blocks sharded over the mesh,
+    halo exchanged with ppermute.
 
     In:  blocks  uint8[B, S]   (B divisible by mesh size),
          lengths int32[B]      (valid bytes per block; 0 = padding block),
@@ -84,7 +84,7 @@ def sharded_match_step(mesh: Mesh, block_size: int, max_candidates: int = 64):
             idx = jax.lax.axis_index(axis)
             bl, s = blocks_l.shape
             # tail of each local block -> halo of the next; device boundary
-            # tails travel left->right around the ring (ICI neighbor hop).
+            # tails travel left->right around the ring (neighbor hop).
             # Blocks smaller than the 64 KB window (dry-run shapes) carry a
             # zero-padded, truncated halo.
             halo_w = min(HALO, s)
@@ -119,23 +119,14 @@ def sharded_match_step(mesh: Mesh, block_size: int, max_candidates: int = 64):
                                              max_candidates)
             return lens, dists, conv
 
-        try:
-            from jax import shard_map
-        except ImportError:  # older jax
-            from jax.experimental.shard_map import shard_map
-
-        kwargs = dict(
-            mesh=mesh,
+        # the kernel's while-loop carries start as replicated constants;
+        # skip the varying-manual-axes check (outputs are still sharded
+        # exactly per out_specs)
+        wrapped = jax.shard_map(
+            local, mesh=mesh,
             in_specs=(P(axis, None), P(axis), P()),
             out_specs=(P(axis, None), P(axis, None), P(axis, None)),
-        )
-        try:
-            # the kernel's while-loop carries start as replicated constants;
-            # skip the varying-manual-axes check (outputs are still sharded
-            # exactly per out_specs)
-            wrapped = shard_map(local, check_vma=False, **kwargs)
-        except TypeError:
-            wrapped = shard_map(local, check_rep=False, **kwargs)
+            check_vma=False)
         return wrapped(blocks, lengths, first_hist)
 
     return jax.jit(step)
@@ -146,10 +137,10 @@ def sharded_chunk_step(mesh: Mesh, n_local: int, chunk: int | None = None,
     """Build the jitted multi-chip step for the PRODUCTION chunk-merge
     kernel (ops.chunkmatch): the stream's chunks are sharded contiguously
     over the mesh, each device ppermutes its last raw chunk to its right
-    neighbor (the 64 KB window halo travels over ICI as bytes — one
-    chunk/device/step, re-sorted locally: sort_chunk is deterministic, so
-    this equals the sequential scan's carried planes bit-for-bit), then
-    runs its local fused scan.  There is no sequential dependency across
+    neighbor (the 64 KB window halo travels as bytes — one chunk/device/
+    step, re-sorted locally: sort_chunk is deterministic, so this equals
+    the sequential path's carried planes bit-for-bit), then runs its local
+    match_chunks.  There is no sequential dependency across
     devices: the halo is a pure function of the neighbor's bytes.
 
     In:  bufs        uint8[nd*n_local, chunk+LOOK]  (sharded rows)
@@ -189,22 +180,13 @@ def sharded_chunk_step(mesh: Mesh, n_local: int, chunk: int | None = None,
                 n_chunks=n_local, head_cap=head_cap, chunk=chunk)
             return ys
 
-        try:
-            from jax import shard_map
-        except ImportError:  # older jax
-            from jax.experimental.shard_map import shard_map
-
-        kwargs = dict(
-            mesh=mesh,
+        wrapped = jax.shard_map(
+            local, mesh=mesh,
             in_specs=(P(axis, None), P(axis), P(axis), P(axis), P(axis),
                       P(axis), P(), P()),
             out_specs=(P(axis, None), P(axis, None), P(axis),
                        P(axis, None), P(axis, None)),
-        )
-        try:
-            wrapped = shard_map(local, check_vma=False, **kwargs)
-        except TypeError:
-            wrapped = shard_map(local, check_rep=False, **kwargs)
+            check_vma=False)
         return wrapped(bufs, cand_hi, valid_hi, match_limit, cut_gram,
                        cut_pos, halo0_buf, halo0_lo)
 
@@ -219,9 +201,9 @@ def compress_sharded_chunks(
     parity: bool = True,
 ) -> bytes:
     """Level-9 compression with the production chunk kernel sharded over a
-    device mesh (VERDICT r2 #4): the same fused scan the single-chip tpu
-    engine runs, split contiguously across devices with the 64 KB halo
-    hand-off over ICI.  Output framing (and, in parity mode, every byte)
+    device mesh: the same match_chunks the single-device engine runs,
+    split contiguously across devices with the 64 KB halo hand-off.
+    Output framing (and, in parity mode, every byte)
     is identical to the sequential engines.  Modern frames only (legacy
     resets history per block and has no halo to exchange — use the host
     or single-chip paths)."""

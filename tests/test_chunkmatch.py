@@ -1,4 +1,4 @@
-"""Chunk-merge device matcher (ops/chunkmatch.py) — interpreter mode.
+"""Chunk-merge device matcher (ops/chunkmatch.py) on the CPU backend.
 
 Drives a 2-chunk stream through sort_chunk + probe_pair and checks the
 parity contract against a nearest-first brute-force search: every claim
@@ -9,18 +9,11 @@ import pytest
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
 
 from smallz4_tpu import format as fmt
 from smallz4_tpu.ops import chunkmatch
 
 C = 1024  # test chunk size
-
-
-@pytest.fixture(autouse=True)
-def _interpret():
-    with pltpu.force_tpu_interpret_mode():
-        yield
 
 
 def _brute(data, start, end):
@@ -307,7 +300,7 @@ def _mixed_stream(n, seed=5):
 
 @pytest.fixture()
 def _tiny_chunks(monkeypatch):
-    """Shrink the chunk engine so interpret-mode e2e runs are feasible.
+    """Shrink the chunk engine so CPU e2e runs stay fast.
 
     NOTE: the convergence certificate needs CHUNK >= MAX_DISTANCE (the
     halo chunk must cover the whole window), so bit-parity assertions at
@@ -457,3 +450,35 @@ def test_match_chunks_scan_equals_stepwise():
         np.testing.assert_array_equal(cv[:hi], ref_conv[s : s + hi])
         np.testing.assert_array_equal(kk[:hi], ref_lk[s : s + hi])
         assert counts[ci] <= C
+
+
+@pytest.mark.parametrize("k", [1, 8, 127, 128, 129, 160, -1, -160])
+def test_flat_shift_matches_numpy(k):
+    x = np.random.default_rng(abs(k)).integers(-1000, 1000, C, dtype=np.int32)
+    want = np.full(C, -7, np.int32)
+    if k > 0:
+        want[: C - k] = x[k:]
+    else:
+        want[-k:] = x[: C + k]
+    got = chunkmatch._flat_shift(jnp.asarray(x), k, fill=-7)
+    np.testing.assert_array_equal(np.asarray(got), want)
+
+
+@pytest.mark.parametrize("keep_kind", ["none", "all", "random"])
+def test_compact_matches_boolean_mask(keep_kind):
+    rng = np.random.default_rng(4)
+    vals = rng.integers(1, 1 << 30, C, dtype=np.int32)
+    keep = {"none": np.zeros(C, bool), "all": np.ones(C, bool),
+            "random": rng.random(C) < 0.3}[keep_kind]
+    packed, count = chunkmatch._compact(jnp.asarray(keep), jnp.asarray(vals))
+    packed = np.asarray(packed)
+    assert int(count) == keep.sum()
+    np.testing.assert_array_equal(packed[: keep.sum()], vals[keep])
+    assert (packed[keep.sum():] == 0).all()
+
+
+def test_bitmask_words_match_packbits():
+    flag = np.random.default_rng(6).random(C) < 0.4
+    got = np.asarray(chunkmatch._bitmask_words(jnp.asarray(flag)))
+    want = np.packbits(flag, bitorder="little").view("<u4").view(np.int32)
+    np.testing.assert_array_equal(got, want)

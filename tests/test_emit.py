@@ -89,10 +89,8 @@ def test_tiny_blocks():
 
 
 def test_device_resident_encode_roundtrip():
-    """match -> device DP -> device emit, end-to-end in interpret mode:
+    """match -> device DP -> device emit, end-to-end on the CPU backend:
     valid -9-class stream, only compressed bytes cross d2h."""
-    from jax.experimental.pallas import tpu as pltpu
-
     from smallz4_tpu.ops import chunkmatch, pipeline
     from smallz4_tpu.utils.profiling import RunReport
 
@@ -108,17 +106,15 @@ def test_device_resident_encode_roundtrip():
                 parts.append(parts[int(rng.integers(0, len(parts)))])
         data = b"".join(parts)[: 4 * C + 500]
         rep = RunReport(operation="encode", engine="tpu-device-resident")
-        with pltpu.force_tpu_interpret_mode():
-            frame = pipeline.compress_device_resident(
-                data, block_size=2 * C, report=rep)
+        frame = pipeline.compress_device_resident(
+            data, block_size=2 * C, report=rep)
         assert native.decompress(frame) == data
         # the point of the mode: compressed bytes cross the link, not
         # claims — d2h stays well below 1 byte per input byte
         assert rep.counters["n_d2h_bytes"] < len(data)
         # sane ratio: at the toy chunk size the match window covers only
         # 2*C of the 64 KB the reference sees, so claims are genuinely
-        # weaker here — production CHUNK covers the full window (raw
-        # mode measured +0.07% vs -9 on chip, BENCH r4)
+        # weaker here — production CHUNK covers the full window
         want = native.compress(data, 9, block_size=2 * C)
         assert len(frame) <= int(len(want) * 1.30) + 64
     finally:
@@ -129,7 +125,6 @@ def test_device_resident_dp_fallback(monkeypatch):
     """A non-converged device DP must fall back to the host DP for the
     block and still produce a valid stream (the documented safety net)."""
     import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
 
     from smallz4_tpu.ops import chunkmatch, pipeline
 
@@ -145,8 +140,7 @@ def test_device_resident_dp_fallback(monkeypatch):
     monkeypatch.setattr(pipeline, "_device_resident_block_step", fake)
     try:
         data = (b"fallback path data " * 120)[: 2 * C]
-        with pltpu.force_tpu_interpret_mode():
-            frame = pipeline.compress_device_resident(data, block_size=2 * C)
+        frame = pipeline.compress_device_resident(data, block_size=2 * C)
         assert native.decompress(frame) == data
     finally:
         (chunkmatch.CHUNK, chunkmatch.GROUP, chunkmatch.HEAD_CAP) = saved

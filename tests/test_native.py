@@ -146,7 +146,7 @@ def test_ring_decoder_errors():
 
 
 def test_block_level_entry_points(corpora):
-    """The TPU-hybrid host ops: match -> DP -> emit == oracle pipeline."""
+    """The device-hybrid host ops: match -> DP -> emit == oracle pipeline."""
     data = np.frombuffer(corpora["text"], dtype=np.uint8)
     bs = len(data)
     lens, dists = native.match_block(data, base=0, bs=bs, level=9)

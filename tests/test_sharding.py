@@ -74,7 +74,7 @@ def test_graft_entry_multichip():
 
 @pytest.fixture()
 def _tiny_chunks(monkeypatch):
-    """Shrink the chunk engine for interpret-mode mesh runs (same scale
+    """Shrink the chunk engine for CPU mesh runs (same scale
     contract as tests/test_chunkmatch.py: parity only holds while every
     window candidate fits in (halo chunk, current chunk))."""
     from smallz4_tpu.ops import chunkmatch
@@ -90,15 +90,12 @@ def test_sharded_chunk_engine_parity(_tiny_chunks):
     identical to the sequential native -9 stream (VERDICT r2 #4).  Bit
     parity at the test chunk size requires every window candidate inside
     (halo chunk, current chunk) — keep data <= 2 chunks (the _tiny_chunks
-    contract); one chunk per device exercises the ICI halo hand-off."""
-    from jax.experimental.pallas import tpu as pltpu
-
+    contract); one chunk per device exercises the halo hand-off."""
     C = 1024
     data = _corpus(2 * C)  # ONE block spanning two devices' chunks
     mesh = sharding.make_mesh(2)
-    with pltpu.force_tpu_interpret_mode():
-        frame = sharding.compress_sharded_chunks(
-            data, mesh, block_size=2 * C, parity=True)
+    frame = sharding.compress_sharded_chunks(
+        data, mesh, block_size=2 * C, parity=True)
     want = native.compress(data, 9, block_size=2 * C)
     assert frame == want
     assert native.decompress(frame) == data
@@ -108,30 +105,24 @@ def test_sharded_chunk_engine_8dev_roundtrip(_tiny_chunks):
     """8-device run over many chunks/blocks incl. a partial final chunk
     and padding rows.  Device claims are byte-verified, so the stream
     round-trips at any scale; bit parity needs full-size chunks (the
-    certificate's window-coverage premise) and is asserted on the real
-    chip by the dryrun/bench paths."""
-    from jax.experimental.pallas import tpu as pltpu
-
+    certificate's window-coverage premise) and is asserted on the card
+    by chip_smoke.py --four."""
     C = 1024
     data = _corpus(16 * C + 300)
     mesh = sharding.make_mesh(8)
-    with pltpu.force_tpu_interpret_mode():
-        for parity in (False, True):
-            frame = sharding.compress_sharded_chunks(
-                data, mesh, block_size=2 * C, parity=parity)
-            assert native.decompress(frame) == data
+    for parity in (False, True):
+        frame = sharding.compress_sharded_chunks(
+            data, mesh, block_size=2 * C, parity=parity)
+        assert native.decompress(frame) == data
 
 
 def test_sharded_chunk_engine_dictionary(_tiny_chunks):
-    from jax.experimental.pallas import tpu as pltpu
-
     C = 1024
     data = _corpus(C)  # one chunk: the dict halo covers its whole window
     dictionary = data[: C // 2]
     mesh = sharding.make_mesh(2)  # row 2 is a padding chunk
-    with pltpu.force_tpu_interpret_mode():
-        frame = sharding.compress_sharded_chunks(
-            data, mesh, block_size=C, dictionary=dictionary, parity=True)
+    frame = sharding.compress_sharded_chunks(
+        data, mesh, block_size=C, dictionary=dictionary, parity=True)
     want = native.compress(data, 9, block_size=C, dictionary=dictionary)
     assert frame == want
     assert native.decompress(frame, dictionary=dictionary) == data

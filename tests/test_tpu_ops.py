@@ -1,5 +1,5 @@
 """Device-op correctness tests (run on the virtual CPU backend; the same
-XLA programs run on TPU).  The differential anchors are the native matcher
+XLA programs run on the GPU).  The differential anchors are the native matcher
 (itself reference-bit-exact) and the oracle."""
 import numpy as np
 import pytest
@@ -27,6 +27,46 @@ def test_grams_and_hash_match_oracle(corpora):
     assert (g_dev[: len(g_ora)] == g_ora).all()
     h_dev = _np(gops.hash20(jnp.asarray(g_ora)))
     assert (h_dev == oracle.hash32(g_ora)).all()
+
+
+def _bytes(n, seed=0):
+    rng = np.random.default_rng(seed)
+    parts = [b"abcabcabc run starts here: ", b"x" * 500,
+             rng.integers(0, 256, n, dtype=np.uint8).tobytes()]
+    return np.frombuffer(b"".join(parts)[:n], np.uint8)
+
+
+@pytest.mark.parametrize("n", [1024, 4096, 5000])
+def test_grams4_and_hash20_match_oracle(n):
+    data = _bytes(n)
+    g = _np(gops.grams4(jnp.asarray(data)))
+    go = oracle.grams4(data)
+    assert (g[: len(go)] == go).all()
+    assert (g[len(go):] == 0).all()  # zero-padded tail
+    assert (_np(gops.hash20(jnp.asarray(g[: len(go)]))) == oracle.hash32(go)).all()
+
+
+def _run_lengths_np(data):
+    n = len(data)
+    out = np.empty(n, np.int32)
+    run = 0
+    for i in range(n - 1, -1, -1):
+        run = run + 1 if i + 1 < n and data[i] == data[i + 1] else 1
+        out[i] = run
+    return out
+
+
+@pytest.mark.parametrize("n", [1024, 2048, 4096, 6000])
+def test_run_lengths_matches_numpy(n):
+    data = _bytes(n, seed=3)
+    got = _np(match_finder._run_lengths(jnp.asarray(data).astype(jnp.int32)))
+    np.testing.assert_array_equal(got, _run_lengths_np(data))
+
+
+def test_run_lengths_pure_run():
+    data = np.full(3072, 65, np.uint8)
+    got = _np(match_finder._run_lengths(jnp.asarray(data).astype(jnp.int32)))
+    np.testing.assert_array_equal(got, np.arange(3072, 0, -1))
 
 
 def test_build_prev_matches_sort_oracle(corpora):
@@ -102,7 +142,7 @@ def test_expand_block_roundtrip(corpora):
         if size_word & 0x80000000:  # stored block: nothing to expand
             continue
         payload = frame[11 : 11 + size_word]
-        dec = decoder.TpuBlockDecoder(out_cap=fmt.MAX_BLOCK_SIZE)
+        dec = decoder.DeviceBlockDecoder(out_cap=fmt.MAX_BLOCK_SIZE)
         assert dec.decode(payload, b"") == data, name
 
 
@@ -115,7 +155,7 @@ def test_expand_block_with_history_and_dict(corpora):
 
 def test_pipeline_roundtrip_all_engines(corpora):
     for name, data in corpora.items():
-        frame = pipeline.compress(data, 9, max_candidates=8)
+        frame = pipeline.compress(data, 9, kernel="walk", max_candidates=8)
         assert native.decompress(frame) == data, name
         assert oracle.decompress(frame) == data, name
         assert pipeline.decompress(native.compress(data, 9)) == data, name
@@ -124,7 +164,8 @@ def test_pipeline_roundtrip_all_engines(corpora):
 def test_pipeline_parity_mode(corpora):
     for name in ("text", "struct", "mixed", "random"):
         data = corpora[name]
-        assert pipeline.compress(data, 9, parity=True, max_candidates=8) == \
+        assert pipeline.compress(data, 9, parity=True, kernel="walk",
+                                 max_candidates=8) == \
             native.compress(data, 9), name
 
 
@@ -134,7 +175,8 @@ def test_pipeline_multiblock_parity():
     piece = rng.integers(0, 256, 30000, dtype=np.uint8).tobytes()
     data = (piece + b"needle in a haystack " * 2000 + piece) * 2
     bs = 131072
-    got = pipeline.compress(data, 9, block_size=bs, parity=True, max_candidates=8)
+    got = pipeline.compress(data, 9, block_size=bs, parity=True,
+                            kernel="walk", max_candidates=8)
     want = native.compress(data, 9, block_size=bs)
     assert got == want
     assert pipeline.decompress(got) == data
@@ -142,7 +184,7 @@ def test_pipeline_multiblock_parity():
 
 def test_pipeline_turbo_size_close_to_optimal(corpora):
     data = corpora["text"] + corpora["struct"]
-    turbo = pipeline.compress(data, 9, max_candidates=16)
+    turbo = pipeline.compress(data, 9, kernel="walk", max_candidates=16)
     exact = native.compress(data, 9)
     # capped-candidate turbo trades a few % of ratio for bounded walks;
     # parity mode (tested above) recovers the exact stream
