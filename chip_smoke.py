@@ -1,6 +1,6 @@
 """Smoke run of the level-9 device encode path on one GPU.
 
-    python chip_smoke.py           # phases 1-4 on one card
+    python chip_smoke.py           # phases 1-5 on one card
     python chip_smoke.py --four    # only the four-card path and its check
 
 Phases (one process; any failure propagates and exits non-zero):
@@ -19,6 +19,8 @@ Phases (one process; any failure propagates and exits non-zero):
   4. decode   decompress(engine="tpu") of every frame, decompress_batch of
               8 frames, compress_device_resident round trip, device DP
               against native.estimate_costs
+  5. gpu tests  every gpu-marked test (tests/, slow ones included), in this
+              process through pytest; all must pass, none may skip
   --four      pipeline.compress over 4 local devices (all must get blocks),
               compress_sharded_chunks and compress_sharded over a 4-device
               mesh, each byte-equal to native.compress
@@ -301,21 +303,46 @@ def phase_four() -> None:
             got = pipeline.compress(mix, 9)
     finally:
         cm.match_chunks = match_chunks
-    check(got == native.compress(mix, 9),
-          "pipeline.compress 32 MB over 4 devices byte-equal native")
+    want = native.compress(mix, 9)
+    check(got == want, "pipeline.compress 32 MB over 4 devices byte-equal native")
     check(len(set(seen)) == 4, "all 4 devices got blocks (calls per device "
           f"{dict(collections.Counter(seen))})")
 
     mesh = sharding.make_mesh(4)
-    x = mix[: 16 << 20]
-    check(sharding.compress_sharded_chunks(x, mesh) == native.compress(x, 9),
-          "compress_sharded_chunks 16 MB over make_mesh(4) byte-equal native")
+    check(sharding.compress_sharded_chunks(mix, mesh) == want,
+          "compress_sharded_chunks 32 MB over make_mesh(4) (two 4 MB groups "
+          "a device) byte-equal native")
     x = mix[: 4 << 20]
     check(sharding.compress_sharded(x, mesh, block_size=1 << 20)
           == native.compress(x, 9, block_size=1 << 20),
           "compress_sharded 4 MB (1 MB blocks) over make_mesh(4) byte-equal "
           "native")
     jax.clear_caches()
+
+
+class _Outcomes:
+    """pytest plugin: counts test outcomes (skips come from setup)."""
+
+    def __init__(self):
+        self.counts = collections.Counter()
+
+    def pytest_runtest_logreport(self, report):
+        if report.when == "call" or report.outcome != "passed":
+            self.counts[report.outcome] += 1
+
+
+def phase_gpu_tests() -> None:
+    import pytest
+
+    log("== phase: gpu tests")
+    # tests/conftest.py defaults JAX_PLATFORMS to the CPU; keep the card
+    os.environ["JAX_PLATFORMS"] = "cuda"
+    outcomes = _Outcomes()
+    rc = pytest.main(["-q", "-s", "-m", "gpu", "-p", "no:cacheprovider",
+                      str(REPO / "tests")], plugins=[outcomes])
+    counts = dict(outcomes.counts)
+    check(rc == 0 and counts.get("passed", 0) >= 2 and set(counts) == {"passed"},
+          f"gpu-marked tests pass on the card {counts}")
 
 
 def main(argv: list[str]) -> int:
@@ -329,6 +356,7 @@ def main(argv: list[str]) -> int:
         phase_kernels(real)
         frames = phase_encode(real)
         phase_decode(frames, frames["mix"][1])
+        phase_gpu_tests()
         count = info["count"]
     print(json.dumps({"ok": True, "device": {
         "platform": info["platform"], "kind": info["kind"], "count": count}}))

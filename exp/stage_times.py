@@ -6,9 +6,8 @@ Times each stage of match_chunks (sort, merge, probe, unsort, certify,
 compact, pack) as its own jitted batched call over GROUP chunks of the
 committed real fixture, both on the host clock (block_until_ready, median
 of reps) and as summed device-event time per XLA module from a
-jax.profiler trace.  Also times the two group forms (the batched
-match_chunks vs a lax.scan over chunks, which must give identical bits).
-Needs a GPU; fails elsewhere.
+jax.profiler trace, and the whole batched match_chunks group beside
+them.  Needs a GPU; fails elsewhere.
 """
 from __future__ import annotations
 
@@ -38,23 +37,6 @@ from smallz4_tpu.utils import device  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 REPS = 20
-
-
-def scan_form(halo, bufs, cand_hi, valid_hi, match_limit, cut_gram,
-              cut_pos, n_chunks, head_cap, chunk):
-    """match_chunks as a lax.scan over chunks (one chunk per step)."""
-    cgs, cps = cm._group_cuts(cut_gram, cut_pos, n_chunks)
-
-    def step(carry, xs):
-        buf, ch, vh, ml, cg, cp = xs
-        cur = cm.sort_chunk(buf, jnp.int32(0), ch, chunk=chunk)
-        claims = cm.probe_pair(carry, cur, cg, cp, jnp.int32(0), vh, ml,
-                               chunk=chunk)
-        bits, packed, n, cb, kb = cm.pack_results(*claims, chunk=chunk)
-        return cur, (bits, packed[:head_cap], n, cb, kb)
-
-    return jax.lax.scan(step, halo,
-                        (bufs, cand_hi, valid_hi, match_limit, cgs, cps))
 
 
 def host_time(fn, *args):
@@ -142,12 +124,8 @@ def main() -> int:
     def group_batched(*a):
         return cm.match_chunks(*a, n_chunks=G, head_cap=CAP, chunk=CH)
 
-    def group_scan(*a):
-        return scan_form(*a, n_chunks=G, head_cap=CAP, chunk=CH)
-
     stage = {f.__name__: jax.jit(f) for f in (
-        sort, merge, probe, unsort, certify, compact, pack, group_batched,
-        group_scan)}
+        sort, merge, probe, unsort, certify, compact, pack, group_batched)}
     curs = stage["sort"](bufs, cand)
     halos = tuple(jnp.concatenate([h[None], c[:-1]])
                   for h, c in zip(halo0, curs))
@@ -158,12 +136,6 @@ def main() -> int:
     claims = stage["certify"](flags0, lens0, dists0, cand, lim)
     heads = jnp.asarray(np.random.default_rng(0).random((G, CH)) < 0.3)
     gargs = (halo0, bufs, cand, cand, lim, zero, off)
-    out_b = jax.block_until_ready(stage["group_batched"](*gargs))
-    out_s = jax.block_until_ready(stage["group_scan"](*gargs))
-    same_form = all(bool((np.asarray(a) == np.asarray(b)).all())
-                    for a, b in zip(jax.tree.leaves(out_b),
-                                    jax.tree.leaves(out_s)))
-    print(f"group forms identical: {same_form}", flush=True)
 
     calls = {
         "sort": (bufs, cand),
@@ -174,11 +146,9 @@ def main() -> int:
         "compact": (heads, lens0),
         "pack": claims,
         "group_batched": gargs,
-        "group_scan": gargs,
     }
     calls = {k: (stage[k], a) for k, a in calls.items()}
-    res = {"device": info, "nvidia_smi": smi, "same_form": same_form,
-           "host_ms": {}}
+    res = {"device": info, "nvidia_smi": smi, "host_ms": {}}
     for name, (fn, a) in calls.items():
         med, best = host_time(fn, *a)
         res["host_ms"][name] = {"median": med, "min": best}
@@ -207,7 +177,7 @@ def main() -> int:
     res["peak_bytes_in_use"] = mem.get("peak_bytes_in_use")
     pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     pathlib.Path(args.out).write_text(json.dumps(res, indent=1))
-    print(json.dumps({k: res[k] for k in ("same_form", "peak_bytes_in_use")}))
+    print(json.dumps({"peak_bytes_in_use": res["peak_bytes_in_use"]}))
     return 0
 
 

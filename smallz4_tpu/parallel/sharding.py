@@ -133,7 +133,7 @@ def sharded_match_step(mesh: Mesh, block_size: int, max_candidates: int = 64):
 
 
 def sharded_chunk_step(mesh: Mesh, n_local: int, chunk: int | None = None,
-                       head_cap: int | None = None):
+                       head_cap: int | None = None, group: int | None = None):
     """Build the jitted multi-chip step for the PRODUCTION chunk-merge
     kernel (ops.chunkmatch): the stream's chunks are sharded contiguously
     over the mesh, each device ppermutes its last raw chunk to its right
@@ -142,6 +142,12 @@ def sharded_chunk_step(mesh: Mesh, n_local: int, chunk: int | None = None,
     the sequential path's carried planes bit-for-bit), then runs its local
     match_chunks.  There is no sequential dependency across
     devices: the halo is a pure function of the neighbor's bytes.
+
+    Each device scans its ``n_local`` chunks ``group`` at a time (default
+    ``min(n_local, chunkmatch.GROUP)``; it must divide ``n_local``), one
+    batched match_chunks call per step with the sorted halo carried, so
+    the device's working memory is that of one group whatever its share
+    of the stream.
 
     In:  bufs        uint8[nd*n_local, chunk+LOOK]  (sharded rows)
          cand_hi, valid_hi, match_limit, cut_gram, cut_pos
@@ -160,6 +166,10 @@ def sharded_chunk_step(mesh: Mesh, n_local: int, chunk: int | None = None,
 
     chunk = chunk or cm.CHUNK
     head_cap = head_cap or cm.HEAD_CAP
+    group = group or min(n_local, cm.GROUP)
+    if n_local % group:
+        raise ValueError(f"n_local={n_local} is not a multiple of "
+                         f"group={group}")
     axis = mesh.axis_names[0]
     nd = mesh.devices.size
 
@@ -175,10 +185,15 @@ def sharded_chunk_step(mesh: Mesh, n_local: int, chunk: int | None = None,
             halo_lo = jnp.where(idx == 0, h0lo, jnp.int32(0))
             halo = cm.sort_chunk(halo_buf, halo_lo, jnp.int32(chunk),
                                  chunk=chunk)
-            _, ys = cm.match_chunks(
-                halo, bufs_l, ch_l, vh_l, ml_l, cg_l, cp_l,
-                n_chunks=n_local, head_cap=head_cap, chunk=chunk)
-            return ys
+
+            def one_group(halo, xs):
+                return cm.match_chunks(halo, *xs, n_chunks=group,
+                                       head_cap=head_cap, chunk=chunk)
+
+            xs = tuple(a.reshape(n_local // group, group, *a.shape[1:])
+                       for a in (bufs_l, ch_l, vh_l, ml_l, cg_l, cp_l))
+            _, ys = jax.lax.scan(one_group, halo, xs)
+            return tuple(y.reshape(n_local, *y.shape[2:]) for y in ys)
 
         wrapped = jax.shard_map(
             local, mesh=mesh,
@@ -232,6 +247,8 @@ def compress_sharded_chunks(
               for b in range(nblocks)]
     n_chunks = max(1, -(-n // CH))
     n_local = -(-n_chunks // nd)
+    if n_local > cm.GROUP:  # whole groups per device (padding rows at the end)
+        n_local = -(-n_local // cm.GROUP) * cm.GROUP
     B = n_local * nd
 
     arr = np.frombuffer(data, np.uint8)

@@ -21,18 +21,17 @@ def _cache_dir_in_fresh_process(env_dir):
         env["JAX_COMPILATION_CACHE_DIR"] = env_dir
     res = subprocess.run(
         [sys.executable, "-c",
-         "import jax, smallz4_tpu.ops; from smallz4_tpu.utils import jaxcfg;"
-         "print(jax.config.jax_compilation_cache_dir); print(jaxcfg.cache_dir())"],
+         "import jax, smallz4_tpu.ops; print(jax.config.jax_compilation_cache_dir)"],
         cwd=REPO, env=env, capture_output=True, text=True, check=True)
-    return res.stdout.split()
+    return res.stdout.strip()
 
 
 def test_compile_cache_honours_env(tmp_path):
     want = str(tmp_path / "cache")
-    assert _cache_dir_in_fresh_process(want) == [want, want]
+    assert _cache_dir_in_fresh_process(want) == want
 
 
 def test_compile_cache_defaults_to_repo_dir():
     want = str(REPO / ".jax_cache")
     assert jaxcfg.DEFAULT_CACHE_DIR == pathlib.Path(want)
-    assert _cache_dir_in_fresh_process(None) == [want, want]
+    assert _cache_dir_in_fresh_process(None) == want

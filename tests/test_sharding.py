@@ -116,6 +116,54 @@ def test_sharded_chunk_engine_8dev_roundtrip(_tiny_chunks):
         assert native.decompress(frame) == data
 
 
+@pytest.mark.parametrize("group", [1, 2])
+def test_sharded_chunk_engine_group_scan_same_frame(_tiny_chunks, monkeypatch,
+                                                    group):
+    """Each device's share (3 chunks here) scanned GROUP chunks at a time,
+    padded to whole groups when GROUP does not divide it, gives the same
+    frame as one batched call over the whole share."""
+    from smallz4_tpu.ops import chunkmatch
+
+    C = 1024
+    data = _corpus(16 * C + 300)
+    mesh = sharding.make_mesh(8)
+    monkeypatch.setattr(chunkmatch, "GROUP", 64)
+    want = sharding.compress_sharded_chunks(data, mesh, block_size=2 * C,
+                                            parity=False)
+    monkeypatch.setattr(chunkmatch, "GROUP", group)
+    got = sharding.compress_sharded_chunks(data, mesh, block_size=2 * C,
+                                           parity=False)
+    assert got == want
+    assert native.decompress(got) == data
+
+
+def _step_temp_bytes(n_local, group):
+    from smallz4_tpu.ops import chunkmatch
+
+    C = 1024
+    step = sharding.sharded_chunk_step(sharding.make_mesh(1), n_local,
+                                       chunk=C, head_cap=C, group=group)
+    rows = [np.zeros(n_local, np.int32)] * 5
+    args = (np.zeros((n_local, C + chunkmatch.LOOK), np.uint8), *rows,
+            np.zeros(C + chunkmatch.LOOK, np.uint8), np.int32(C))
+    return step.lower(*args).compile().memory_analysis().temp_size_in_bytes
+
+
+def test_sharded_chunk_step_memory_is_one_group():
+    """A device's working memory is one group's, whatever its share of the
+    stream: 8x the chunks in 2-chunk groups keeps the temp of one group,
+    while one batched call over all of them grows with the share."""
+    one = _step_temp_bytes(2, group=2)
+    assert _step_temp_bytes(16, group=2) <= 1.25 * one
+    assert _step_temp_bytes(16, group=16) >= 4 * one
+
+
+def test_sharded_chunk_step_rejects_partial_group():
+    with pytest.raises(ValueError):
+        sharding.sharded_chunk_step(sharding.make_mesh(1), 3, chunk=1024,
+                                    head_cap=1024, group=2)
+
+
 def test_sharded_chunk_engine_dictionary(_tiny_chunks):
     C = 1024
     data = _corpus(C)  # one chunk: the dict halo covers its whole window

@@ -16,6 +16,7 @@ the reference-parity-pinned anchor (tests/test_native.py), host-parallel
 must equal it exactly, and the device parity engine must as well (on the
 card only: the CPU backend's timings say nothing about the engine).
 """
+import pathlib
 import time
 
 import numpy as np
@@ -26,6 +27,9 @@ from smallz4_tpu.parallel import host as phost
 
 SOAK_MB = 64
 BLOCK = 4 * 1024 * 1024
+# text filler: the native runtime's own source, so the corpus needs no
+# file from outside the repository
+FILLER = pathlib.Path(__file__).resolve().parents[1] / "native" / "src" / "tlz4.cpp"
 
 
 def _adversarial_corpus(total: int) -> bytes:
@@ -56,7 +60,7 @@ def _adversarial_corpus(total: int) -> bytes:
             parts.append(rng.integers(0, 256, int(rng.integers(2000, 60000)),
                                       dtype=np.uint8).tobytes())
         else:  # plain text-ish filler
-            parts.append(open("/root/reference/smallz4.h", "rb").read())
+            parts.append(FILLER.read_bytes())
         size += len(parts[-1])
     return b"".join(parts)[:total]
 
